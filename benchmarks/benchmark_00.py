@@ -24,15 +24,15 @@ import jax
 import jax.numpy as jnp
 
 try:
-    import dealii_matrixfree_hanging_nodes_tpu  # noqa: F401
+    import dealii_matrixfree_hanging_nodes  # noqa: F401
 except ModuleNotFoundError:  # checkout use without `pip install -e .`
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from dealii_matrixfree_hanging_nodes_tpu.elements import shape_info
-from dealii_matrixfree_hanging_nodes_tpu.ops.hanging_nodes import (
+from dealii_matrixfree_hanging_nodes.elements import shape_info
+from dealii_matrixfree_hanging_nodes.ops.hanging_nodes import (
     apply_hanging_node_constraints,
 )
-from dealii_matrixfree_hanging_nodes_tpu.utils.timing import repeat_timed, trace
+from dealii_matrixfree_hanging_nodes.utils.timing import repeat_timed, trace
 
 
 def run(degree: int = 4, n_cells: int = 4096, dim: int = 3,
@@ -55,8 +55,8 @@ def run(degree: int = 4, n_cells: int = 4096, dim: int = 3,
     )
     res = repeat_timed(lambda v: fn(v, masks, P), data, n_reps=100, n_trials=3)
     if do_trace:
-        with trace() as d:
-            fn(data, masks, P)
+        with trace("traces/benchmark_00") as d:
+            fn(data, masks, P).block_until_ready()
         print(f"profiler trace written to {d}", file=sys.stderr)
     cells_per_s = n_cells / res.min
     print(
@@ -76,6 +76,11 @@ def run(degree: int = 4, n_cells: int = 4096, dim: int = 3,
 
 
 def main(argv=None):
+    from dealii_matrixfree_hanging_nodes.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     argv = sys.argv[1:] if argv is None else argv
     args = [a for a in argv if a != "--trace"]
     degree = int(args[0]) if len(args) > 0 else 4

@@ -29,17 +29,17 @@ import jax
 import jax.numpy as jnp
 
 try:
-    import dealii_matrixfree_hanging_nodes_tpu  # noqa: F401
+    import dealii_matrixfree_hanging_nodes  # noqa: F401
 except ModuleNotFoundError:  # checkout use without `pip install -e .`
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn
-from dealii_matrixfree_hanging_nodes_tpu.constraints import decompress_mask
-from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
-from dealii_matrixfree_hanging_nodes_tpu.models.laplace import laplace_cell_kernel
-from dealii_matrixfree_hanging_nodes_tpu.utils.params import BenchmarkParameters
-from dealii_matrixfree_hanging_nodes_tpu.utils.table import ConvergenceTable
-from dealii_matrixfree_hanging_nodes_tpu.utils.timing import repeat_timed
+import dealii_matrixfree_hanging_nodes as mfhn
+from dealii_matrixfree_hanging_nodes.constraints import decompress_mask
+from dealii_matrixfree_hanging_nodes.matrix_free import MatrixFree
+from dealii_matrixfree_hanging_nodes.models.laplace import laplace_cell_kernel
+from dealii_matrixfree_hanging_nodes.utils.params import BenchmarkParameters
+from dealii_matrixfree_hanging_nodes.utils.table import ConvergenceTable
+from dealii_matrixfree_hanging_nodes.utils.timing import repeat_timed
 
 BATCH_WIDTH = 8  # sublane-tile analog of the reference's SIMD cell batch
 
@@ -217,7 +217,7 @@ def run_benchmark(parameters_vector, dim=3, n_reps=100, table=None):
         # runtime verification that the requested vectorization type maps to
         # an available runner (the analog of the compiled-variant assertions
         # at benchmark_01.cc:126-158)
-        # "matrix" is the TPU-native 4th runner (composite per-mask matmuls,
+        # "matrix" is the 4th runner (composite per-mask matmuls,
         # no reference analog — the reference's three are README.md:27-57)
         expected = {
             "index": "compact",
@@ -281,6 +281,11 @@ def run_benchmark(parameters_vector, dim=3, n_reps=100, table=None):
 
 
 def main(argv=None):
+    from dealii_matrixfree_hanging_nodes.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     import os
 
     argv = sys.argv if argv is None else argv

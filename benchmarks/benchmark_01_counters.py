@@ -2,8 +2,8 @@
 benchmark_01_likwid.cc + experiments/run-exp2.sh's MEM / FLOPS_DP / BRANCH /
 CACHES sweep).
 
-LIKWID reads CPU counters around the kernel; the TPU toolchain equivalent
-is (a) XLA's compiled cost model per program — flops, bytes accessed, peak
+LIKWID reads CPU counters around the kernel; the XLA equivalent is (a)
+XLA's compiled cost model per program — flops, bytes accessed, peak
 memory — and (b) the XPlane profiler trace for measured utilization. This
 driver reports (a) for every benchmark_01 variant (t0..t7: DG/CG x
 ±constraints x ±quad-kernel x fast/slow), plus arithmetic intensity, the
@@ -24,12 +24,12 @@ import jax
 import jax.numpy as jnp
 
 try:
-    import dealii_matrixfree_hanging_nodes_tpu  # noqa: F401
+    import dealii_matrixfree_hanging_nodes  # noqa: F401
 except ModuleNotFoundError:  # checkout use without `pip install -e .`
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 from benchmarks.benchmark_01 import Test  # noqa: E402
-from dealii_matrixfree_hanging_nodes_tpu.utils.table import (  # noqa: E402
+from dealii_matrixfree_hanging_nodes.utils.table import (  # noqa: E402
     ConvergenceTable,
 )
 
@@ -67,16 +67,20 @@ def run(geometry="quadrant", nref=4, degree=4, trace=False, table=None):
             "flops_per_dof", round(flops / mf.n_dofs, 1) if mf.n_dofs else 0
         )
         if trace:
-            from dealii_matrixfree_hanging_nodes_tpu.utils.timing import sync_fetch, trace as tr
+            from dealii_matrixfree_hanging_nodes.utils.timing import trace as tr
 
-            with tr(f"/tmp/mfhn-counters-{name}"):
-                y = jit_step(x0, mf.arrays)
-                _ = sync_fetch(y)
+            with tr(f"traces/counters-{name}"):
+                jit_step(x0, mf.arrays).block_until_ready()
         print(table.write_text())
     return table
 
 
 def main(argv=None):
+    from dealii_matrixfree_hanging_nodes.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     argv = sys.argv[1:] if argv is None else argv
     args = [a for a in argv if not a.startswith("--")]
     geometry = args[0] if len(args) > 0 else "quadrant"

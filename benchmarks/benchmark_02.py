@@ -28,18 +28,18 @@ import numpy as np
 import jax
 
 try:
-    import dealii_matrixfree_hanging_nodes_tpu  # noqa: F401
+    import dealii_matrixfree_hanging_nodes  # noqa: F401
 except ModuleNotFoundError:  # checkout use without `pip install -e .`
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn
-from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
-from dealii_matrixfree_hanging_nodes_tpu.parallel.distributed import DistributedLaplace
-from dealii_matrixfree_hanging_nodes_tpu.parallel.partition import (
+import dealii_matrixfree_hanging_nodes as mfhn
+from dealii_matrixfree_hanging_nodes.matrix_free import MatrixFree
+from dealii_matrixfree_hanging_nodes.parallel.distributed import DistributedLaplace
+from dealii_matrixfree_hanging_nodes.parallel.partition import (
     hanging_nodes_weighting,
 )
-from dealii_matrixfree_hanging_nodes_tpu.utils.table import ConvergenceTable
-from dealii_matrixfree_hanging_nodes_tpu.utils.timing import repeat_timed
+from dealii_matrixfree_hanging_nodes.utils.table import ConvergenceTable
+from dealii_matrixfree_hanging_nodes.utils.timing import repeat_timed
 
 
 def run(
@@ -78,7 +78,7 @@ def run(
     for w in weights:
         cw = hanging_nodes_weighting(constrained, float(w))
         if engine == "bricks":
-            from dealii_matrixfree_hanging_nodes_tpu.parallel.bricks_distributed import (
+            from dealii_matrixfree_hanging_nodes.parallel.bricks_distributed import (
                 DistributedBrickLaplace,
             )
 
@@ -134,6 +134,11 @@ def run(
 
 
 def main(argv=None):
+    from dealii_matrixfree_hanging_nodes.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     import os
 
     argv = sys.argv[1:] if argv is None else argv

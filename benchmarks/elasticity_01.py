@@ -14,15 +14,15 @@ import numpy as np
 import jax.numpy as jnp
 
 try:
-    import dealii_matrixfree_hanging_nodes_tpu  # noqa: F401
+    import dealii_matrixfree_hanging_nodes  # noqa: F401
 except ModuleNotFoundError:  # checkout use without `pip install -e .`
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn
-from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
-from dealii_matrixfree_hanging_nodes_tpu.models.elasticity import ElasticityOperator
-from dealii_matrixfree_hanging_nodes_tpu.utils.table import ConvergenceTable
-from dealii_matrixfree_hanging_nodes_tpu.utils.timing import repeat_timed_paired
+import dealii_matrixfree_hanging_nodes as mfhn
+from dealii_matrixfree_hanging_nodes.matrix_free import MatrixFree
+from dealii_matrixfree_hanging_nodes.models.elasticity import ElasticityOperator
+from dealii_matrixfree_hanging_nodes.utils.table import ConvergenceTable
+from dealii_matrixfree_hanging_nodes.utils.timing import repeat_timed_paired
 
 
 def run(nref=5, degree=2, n_windows=3, n_reps=50, dtype=np.float32,
@@ -32,7 +32,7 @@ def run(nref=5, degree=2, n_windows=3, n_reps=50, dtype=np.float32,
     rng = np.random.default_rng(0)
     scale = jnp.asarray(1e-3, dtype)
     if engine == "bricks":
-        from dealii_matrixfree_hanging_nodes_tpu.models.elasticity_bricks import (
+        from dealii_matrixfree_hanging_nodes.models.elasticity_bricks import (
             BrickElasticity,
         )
 
@@ -79,6 +79,11 @@ def run(nref=5, degree=2, n_windows=3, n_reps=50, dtype=np.float32,
 
 
 def main(argv=None):
+    from dealii_matrixfree_hanging_nodes.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     argv = sys.argv[1:] if argv is None else argv
     args = [a for a in argv if a != "--bricks"]
     run(

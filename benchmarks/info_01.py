@@ -18,14 +18,14 @@ import sys
 import numpy as np
 
 try:
-    import dealii_matrixfree_hanging_nodes_tpu  # noqa: F401
+    import dealii_matrixfree_hanging_nodes  # noqa: F401
 except ModuleNotFoundError:  # checkout use without `pip install -e .`
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn
-from dealii_matrixfree_hanging_nodes_tpu.constraints import build_constraints
-from dealii_matrixfree_hanging_nodes_tpu.dof_handler import DoFHandler
-from dealii_matrixfree_hanging_nodes_tpu.utils.table import ConvergenceTable
+import dealii_matrixfree_hanging_nodes as mfhn
+from dealii_matrixfree_hanging_nodes.constraints import build_constraints
+from dealii_matrixfree_hanging_nodes.dof_handler import DoFHandler
+from dealii_matrixfree_hanging_nodes.utils.table import ConvergenceTable
 
 
 def weight_pool_groups(ci) -> int:
@@ -59,6 +59,11 @@ def run(degree: int = 4, min_ref: int = 5, max_ref: int = 7, dim: int = 3):
 
 
 def main(argv=None):
+    from dealii_matrixfree_hanging_nodes.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     argv = sys.argv[1:] if argv is None else argv
     degree = int(argv[0]) if len(argv) > 0 else 4
     min_ref = int(argv[1]) if len(argv) > 1 else 5

@@ -17,14 +17,14 @@ import jax
 import jax.numpy as jnp
 
 try:
-    import dealii_matrixfree_hanging_nodes_tpu  # noqa: F401
+    import dealii_matrixfree_hanging_nodes  # noqa: F401
 except ModuleNotFoundError:  # checkout use without `pip install -e .`
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn  # noqa: E402
-from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree  # noqa: E402
-from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickLaplaceMM  # noqa: E402
-from dealii_matrixfree_hanging_nodes_tpu.utils.timing import (  # noqa: E402
+import dealii_matrixfree_hanging_nodes as mfhn  # noqa: E402
+from dealii_matrixfree_hanging_nodes.matrix_free import MatrixFree  # noqa: E402
+from dealii_matrixfree_hanging_nodes.bricks import BrickLaplaceMM  # noqa: E402
+from dealii_matrixfree_hanging_nodes.utils.timing import (  # noqa: E402
     repeat_timed_paired,
 )
 
@@ -36,7 +36,7 @@ def main(nref=7, degree=4, geometry="quadrant", fill_mode="input"):
     ops = {}
     for cm in modes:
         os.environ["BRICK_CHAIN"] = cm
-        ops[cm] = BrickLaplaceMM(mf, auto_layout=False, fill_mode=fill_mode)
+        ops[cm] = BrickLaplaceMM(mf, fill_mode=fill_mode)
     os.environ.pop("BRICK_CHAIN", None)
     rng = np.random.default_rng(0)
     op0 = ops[modes[0]]

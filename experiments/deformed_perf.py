@@ -1,7 +1,7 @@
 """Deformed (high-order mapping) brick vmult throughput vs Cartesian
 (VERDICT r2 weak item 7; reference exercises TestHighOrderMapping at
 benchmark_01.h:227-242). Times both operators on the same mesh in one
-weather window (interleaved pairs) so the deformed/Cartesian ratio is
+window (interleaved pairs) so the deformed/Cartesian ratio is
 drift-free.
 
   python experiments/deformed_perf.py [nref] [degree]
@@ -14,14 +14,14 @@ import jax
 import jax.numpy as jnp
 
 try:
-    import dealii_matrixfree_hanging_nodes_tpu  # noqa: F401
+    import dealii_matrixfree_hanging_nodes  # noqa: F401
 except ModuleNotFoundError:  # checkout use without `pip install -e .`
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn
-from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
-from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickLaplaceMM
-from dealii_matrixfree_hanging_nodes_tpu.utils.timing import repeat_timed_paired
+import dealii_matrixfree_hanging_nodes as mfhn
+from dealii_matrixfree_hanging_nodes.matrix_free import MatrixFree
+from dealii_matrixfree_hanging_nodes.bricks import BrickLaplaceMM
+from dealii_matrixfree_hanging_nodes.utils.timing import repeat_timed_paired
 
 
 def main(nref=6, degree=4):

@@ -13,12 +13,12 @@ Optionally BRICK_SIZE_P1/P2 override the auto brick size for low degrees.
 import sys
 
 try:
-    import dealii_matrixfree_hanging_nodes_tpu  # noqa: F401
+    import dealii_matrixfree_hanging_nodes  # noqa: F401
 except ModuleNotFoundError:  # checkout use without `pip install -e .`
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 from benchmarks.benchmark_03 import run
-from dealii_matrixfree_hanging_nodes_tpu.utils.table import ConvergenceTable
+from dealii_matrixfree_hanging_nodes.utils.table import ConvergenceTable
 
 # (degree, n_ref): smallest refinement with >= ~10 MDoF on quadrant
 # (n_dofs ~ n_cells * p^3; quadrant cells: r7 270k, r8 2.13M, r9 17.1M)

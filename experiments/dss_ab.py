@@ -5,7 +5,7 @@ pair: gather-only — each interface copy sums its contributor list from
 per-slot tables (no XLA scatter in the hot path).
 
 Both vmult (constrained) and vmult_plain are timed interleaved in one
-weather window so the ratio is meaningful (utils.timing.repeat_timed_paired).
+window so the ratio is meaningful (utils.timing.repeat_timed_paired).
 Decides the production default (PERF.md queue item: benchmark Mosaic/DSS
 alternatives on-chip before adopting).
 
@@ -17,14 +17,14 @@ import numpy as np
 import jax.numpy as jnp
 
 try:
-    import dealii_matrixfree_hanging_nodes_tpu  # noqa: F401
+    import dealii_matrixfree_hanging_nodes  # noqa: F401
 except ModuleNotFoundError:  # checkout use without `pip install -e .`
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn
-from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
-from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickLaplaceMM
-from dealii_matrixfree_hanging_nodes_tpu.utils.timing import repeat_timed_paired
+import dealii_matrixfree_hanging_nodes as mfhn
+from dealii_matrixfree_hanging_nodes.matrix_free import MatrixFree
+from dealii_matrixfree_hanging_nodes.bricks import BrickLaplaceMM
+from dealii_matrixfree_hanging_nodes.utils.timing import repeat_timed_paired
 
 
 def main(nref=7, degree=4, geometry="quadrant"):

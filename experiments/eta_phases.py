@@ -1,7 +1,7 @@
 """Phase ablation of the brick-engine HN overhead (eta work).
 
 Times the constrained brick vmult with HN-specific phases peeled off, all
-interleaved in one weather window (utils.timing.repeat_timed_paired), to
+interleaved in one window (utils.timing.repeat_timed_paired), to
 locate where the constrained-minus-plain time goes. Reference pair being
 modeled: benchmark_03.h:510-532 (±constraints vmult).
 
@@ -14,14 +14,14 @@ import jax
 import jax.numpy as jnp
 
 try:
-    import dealii_matrixfree_hanging_nodes_tpu  # noqa: F401
+    import dealii_matrixfree_hanging_nodes  # noqa: F401
 except ModuleNotFoundError:  # checkout use without `pip install -e .`
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn
-from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
-from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickLaplaceMM
-from dealii_matrixfree_hanging_nodes_tpu.utils.timing import repeat_timed_paired
+import dealii_matrixfree_hanging_nodes as mfhn
+from dealii_matrixfree_hanging_nodes.matrix_free import MatrixFree
+from dealii_matrixfree_hanging_nodes.bricks import BrickLaplaceMM
+from dealii_matrixfree_hanging_nodes.utils.timing import repeat_timed_paired
 
 
 def main(nref=7, degree=4):
@@ -102,7 +102,7 @@ def main(nref=7, degree=4):
         # match the operator's precision context (vmult/vmult_plain run
         # tf32); without this the ablation variants time bf16 matmuls
         def g(x):
-            with jax.default_matmul_precision("tensorfloat32"):
+            with jax.default_matmul_precision("highest"):
                 return f(x)
         return g
 

@@ -1,7 +1,7 @@
 """Fine-grained phase ablation of the brick-engine HN overhead (round 4).
 
 Decomposes constrained-minus-plain into cumulative phases, all timed
-interleaved in one weather window (utils.timing.repeat_timed_paired).
+interleaved in one window (utils.timing.repeat_timed_paired).
 Uses the hybrid fill read side (volume extraction). Reference pair being
 modeled: benchmark_03.h:510-532 (±constraints vmult).
 
@@ -23,14 +23,14 @@ import jax
 import jax.numpy as jnp
 
 try:
-    import dealii_matrixfree_hanging_nodes_tpu  # noqa: F401
+    import dealii_matrixfree_hanging_nodes  # noqa: F401
 except ModuleNotFoundError:  # checkout use without `pip install -e .`
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn
-from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
-from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickLaplaceMM
-from dealii_matrixfree_hanging_nodes_tpu.utils.timing import repeat_timed_paired
+import dealii_matrixfree_hanging_nodes as mfhn
+from dealii_matrixfree_hanging_nodes.matrix_free import MatrixFree
+from dealii_matrixfree_hanging_nodes.bricks import BrickLaplaceMM
+from dealii_matrixfree_hanging_nodes.utils.timing import repeat_timed_paired
 
 
 def main(nref=7, degree=4, geometry="quadrant"):
@@ -136,7 +136,7 @@ def main(nref=7, degree=4, geometry="quadrant"):
 
     def with_prec(f):
         def g(x):
-            with jax.default_matmul_precision("tensorfloat32"):
+            with jax.default_matmul_precision("highest"):
                 return f(x)
         return g
 

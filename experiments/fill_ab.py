@@ -6,8 +6,8 @@ Modes:
   vol1h  — volume fill but one-hot E scatter (isolates the col2im gain)
 
 For each mode, times constrained vmult AND the plain (constraints-off)
-vmult interleaved in one window (utils.timing.repeat_timed_paired with the
-post-fetch-sync protocol) and prints the per-mode HN overhead — the
+vmult interleaved in one window (utils.timing.repeat_timed_paired) and
+prints the per-mode HN overhead — the
 benchmark_03 ±constraints pair (benchmark_03.h:510-532) this engine is
 judged on.
 
@@ -23,10 +23,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax.numpy as jnp  # noqa: E402
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn  # noqa: E402
-from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree  # noqa: E402
-from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickLaplaceMM  # noqa: E402
-from dealii_matrixfree_hanging_nodes_tpu.utils.timing import (  # noqa: E402
+import dealii_matrixfree_hanging_nodes as mfhn  # noqa: E402
+from dealii_matrixfree_hanging_nodes.matrix_free import MatrixFree  # noqa: E402
+from dealii_matrixfree_hanging_nodes.bricks import BrickLaplaceMM  # noqa: E402
+from dealii_matrixfree_hanging_nodes.utils.timing import (  # noqa: E402
     repeat_timed_paired,
 )
 
@@ -44,7 +44,7 @@ def main(nref=7, degree=4, geometry="quadrant"):
         "inp": dict(fill_mode="input", col2im="onehot"),
     }
     combos = [(n, all_combos[n]) for n in combos_env.split(",")]
-    ops = {n: BrickLaplaceMM(mf, auto_layout=False, **kw) for n, kw in combos}
+    ops = {n: BrickLaplaceMM(mf, **kw) for n, kw in combos}
     rng = np.random.default_rng(0)
     op0 = ops[combos[0][0]]
     src = rng.standard_normal((op0.bs.n_bricks, op0.N3p)).astype(np.float32)

@@ -26,9 +26,9 @@ def main():
     n_reps = int(sys.argv[4]) if len(sys.argv) > 4 else 20
 
     import jax.numpy as jnp
-    import dealii_matrixfree_hanging_nodes_tpu as mfhn
-    from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
-    from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickLaplaceMM
+    import dealii_matrixfree_hanging_nodes as mfhn
+    from dealii_matrixfree_hanging_nodes.matrix_free import MatrixFree
+    from dealii_matrixfree_hanging_nodes.bricks import BrickLaplaceMM
 
     tria = mfhn.create_quadrant(3, nref)
     mf = MatrixFree(tria, degree=degree, dtype=np.float32)

@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
 # End-to-end vmult sweep (experiments-skx/run-exp5.sh + cuda/run.sh analog):
-# degrees 1..6, refinement sweep, both geometries, on the TPU chip.
+# degrees 1..6, refinement sweep, both geometries, on the GPU.
 set -e
 cd "$(dirname "$0")/.."
 for degree in 1 2 3 4 5 6; do

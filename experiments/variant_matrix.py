@@ -3,7 +3,7 @@
 The reference benches its three vectorization variants via run-exp3-b.sh:1-3
 (HN_TYPE patch, README.md:27-57) across degrees (benchmark_01.cc:126-158).
 Here all four runners — index/sorted/group (reference analogs) plus the
-TPU-native "matrix" composite-matmul runner — run in ONE process on the same
+composite-matmul "matrix" runner — run in ONE process on the same
 meshes, so per-variant t0..t7/eta are directly comparable.
 
   python experiments/variant_matrix.py [geometry] [nref] [p_min] [p_max]
@@ -15,15 +15,15 @@ import os
 import sys
 
 try:
-    import dealii_matrixfree_hanging_nodes_tpu  # noqa: F401
+    import dealii_matrixfree_hanging_nodes  # noqa: F401
 except ModuleNotFoundError:  # checkout use without `pip install -e .`
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 from benchmarks.benchmark_01 import run_benchmark
-from dealii_matrixfree_hanging_nodes_tpu.utils.params import (
+from dealii_matrixfree_hanging_nodes.utils.params import (
     BenchmarkParameters,
 )
-from dealii_matrixfree_hanging_nodes_tpu.utils.table import ConvergenceTable
+from dealii_matrixfree_hanging_nodes.utils.table import ConvergenceTable
 
 
 def main(geometry="quadrant", nref=5, p_min=1, p_max=6):

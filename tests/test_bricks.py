@@ -2,11 +2,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn
-from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
-from dealii_matrixfree_hanging_nodes_tpu.models.laplace import LaplaceOperator
-from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickLaplace, BrickLaplaceMM
-from dealii_matrixfree_hanging_nodes_tpu.oracle import vmult_oracle
+import dealii_matrixfree_hanging_nodes as mfhn
+from dealii_matrixfree_hanging_nodes.matrix_free import MatrixFree
+from dealii_matrixfree_hanging_nodes.models.laplace import LaplaceOperator
+from dealii_matrixfree_hanging_nodes.bricks import BrickLaplace, BrickLaplaceMM
+from dealii_matrixfree_hanging_nodes.oracle import vmult_oracle
 
 
 CASES = [
@@ -58,7 +58,7 @@ def test_brick_roundtrip_identity():
 
 def test_brick_space_cg():
     """CG runs entirely in the brick layout with the reduced-space dot."""
-    from dealii_matrixfree_hanging_nodes_tpu.models.multigrid import solve_cg
+    from dealii_matrixfree_hanging_nodes.models.multigrid import solve_cg
 
     t = mfhn.create_quadrant(3, 3)
     mf = MatrixFree(t, 2, dtype=np.float64)
@@ -176,7 +176,7 @@ def test_brick_mm_2d(geo, nref, p):
 def test_vmult_plain_equals_vmult_on_uniform():
     """On a mesh with no hanging nodes the constraints-off brick variant is
     the same operator (hole corrections and DSS still apply)."""
-    from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickLaplaceMM
+    from dealii_matrixfree_hanging_nodes.bricks import BrickLaplaceMM
 
     for dim, r, p in ((3, 2, 3), (2, 3, 4)):
         t = mfhn.create_uniform(dim, r)
@@ -190,7 +190,7 @@ def test_vmult_plain_equals_vmult_on_uniform():
 
 
 def test_vmult_plain_smoke_constrained():
-    from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickLaplaceMM
+    from dealii_matrixfree_hanging_nodes.bricks import BrickLaplaceMM
 
     t = mfhn.create_quadrant(3, 3)
     mf = MatrixFree(t, 2, dtype=np.float64)

@@ -1,12 +1,12 @@
 import numpy as np
 import pytest
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn
-from dealii_matrixfree_hanging_nodes_tpu.constraints import (
+import dealii_matrixfree_hanging_nodes as mfhn
+from dealii_matrixfree_hanging_nodes.constraints import (
     build_constraints,
     decompress_mask,
 )
-from dealii_matrixfree_hanging_nodes_tpu.dof_handler import DoFHandler
+from dealii_matrixfree_hanging_nodes.dof_handler import DoFHandler
 
 
 CASES = [
@@ -86,8 +86,8 @@ def test_mask_memory_consumption():
 
 def test_error_paths():
     import pytest as _pt
-    from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
-    from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickStructure
+    from dealii_matrixfree_hanging_nodes.matrix_free import MatrixFree
+    from dealii_matrixfree_hanging_nodes.bricks import BrickStructure
 
     t = mfhn.create_quadrant(3, 2)
     with _pt.raises(ValueError):
@@ -116,7 +116,7 @@ def test_degree10_entity_markers_unique():
     """Regression: the old marker sz*8+ia aliased across levels for p>=10,
     silently merging distinct nodes into one DoF. Every global DoF must have
     a single consistent support point across all cells writing it."""
-    from dealii_matrixfree_hanging_nodes_tpu.dof_handler import DoFHandler
+    from dealii_matrixfree_hanging_nodes.dof_handler import DoFHandler
 
     t = mfhn.create_quadrant(2, 2)
     dh = DoFHandler(t, 10)
@@ -136,7 +136,7 @@ def test_helper_census_matches_masks(dim, geo, nref):
     """Two-oracle redundancy (benchmark_03.h:412-432): the pure-topology
     Helper detector and the compressed-mask builder must agree cell by cell
     on which cells are hanging-node constrained."""
-    from dealii_matrixfree_hanging_nodes_tpu.constraint_helper import Helper
+    from dealii_matrixfree_hanging_nodes.constraint_helper import Helper
 
     t = mfhn.create_geometry(geo, dim, nref)
     dh = DoFHandler(t, 2)

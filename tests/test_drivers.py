@@ -19,7 +19,7 @@ def test_benchmark_00_runs():
 
 def test_benchmark_01_matrix_and_eta():
     from benchmarks import benchmark_01
-    from dealii_matrixfree_hanging_nodes_tpu.utils.params import BenchmarkParameters
+    from dealii_matrixfree_hanging_nodes.utils.params import BenchmarkParameters
 
     p = BenchmarkParameters(
         geometry_type="quadrant",
@@ -72,7 +72,7 @@ def test_info_01_memory():
 
 
 def test_params_json_roundtrip(tmp_path):
-    from dealii_matrixfree_hanging_nodes_tpu.utils.params import (
+    from dealii_matrixfree_hanging_nodes.utils.params import (
         BenchmarkParameters,
         generate_parameter_files,
     )
@@ -88,7 +88,7 @@ def test_params_json_roundtrip(tmp_path):
 
 
 def test_table_output():
-    from dealii_matrixfree_hanging_nodes_tpu.utils.table import ConvergenceTable
+    from dealii_matrixfree_hanging_nodes.utils.table import ConvergenceTable
 
     t = ConvergenceTable()
     t.add_value("n", 10)
@@ -121,7 +121,7 @@ def test_variant_matrix_all_runners_agree():
     """The four HN runners produce identical t-matrix censuses and all
     time positively (the timing itself is hardware-dependent)."""
     from benchmarks import benchmark_01
-    from dealii_matrixfree_hanging_nodes_tpu.utils.params import (
+    from dealii_matrixfree_hanging_nodes.utils.params import (
         BenchmarkParameters,
     )
 

@@ -1,11 +1,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn
-from dealii_matrixfree_hanging_nodes_tpu.dof_handler import local_lattice
-from dealii_matrixfree_hanging_nodes_tpu.elements import shape_info
-from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
-from dealii_matrixfree_hanging_nodes_tpu.models.elasticity import ElasticityOperator
+import dealii_matrixfree_hanging_nodes as mfhn
+from dealii_matrixfree_hanging_nodes.dof_handler import local_lattice
+from dealii_matrixfree_hanging_nodes.elements import shape_info
+from dealii_matrixfree_hanging_nodes.matrix_free import MatrixFree
+from dealii_matrixfree_hanging_nodes.models.elasticity import ElasticityOperator
 
 
 def _dense_grad_tables(p, dim):
@@ -27,8 +27,8 @@ def _dense_grad_tables(p, dim):
 def _oracle_elasticity(tria, p, mu, lam, src):
     """Dense-assembled C^T A C for elasticity, component-fastest layout."""
     import scipy.sparse as sp
-    from dealii_matrixfree_hanging_nodes_tpu.constraints import build_constraints
-    from dealii_matrixfree_hanging_nodes_tpu.dof_handler import DoFHandler
+    from dealii_matrixfree_hanging_nodes.constraints import build_constraints
+    from dealii_matrixfree_hanging_nodes.dof_handler import DoFHandler
 
     dim = tria.dim
     dh = DoFHandler(tria, p)

@@ -6,12 +6,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn
-from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
-from dealii_matrixfree_hanging_nodes_tpu.models.elasticity import (
+import dealii_matrixfree_hanging_nodes as mfhn
+from dealii_matrixfree_hanging_nodes.matrix_free import MatrixFree
+from dealii_matrixfree_hanging_nodes.models.elasticity import (
     ElasticityOperator,
 )
-from dealii_matrixfree_hanging_nodes_tpu.models.elasticity_bricks import (
+from dealii_matrixfree_hanging_nodes.models.elasticity_bricks import (
     BrickElasticity,
 )
 

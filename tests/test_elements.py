@@ -1,6 +1,6 @@
 import numpy as np
 
-from dealii_matrixfree_hanging_nodes_tpu.elements import (
+from dealii_matrixfree_hanging_nodes.elements import (
     ShapeInfo,
     gauss_lobatto_points,
     gauss_points,

@@ -2,11 +2,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn
-from dealii_matrixfree_hanging_nodes_tpu.constraints import build_constraints
-from dealii_matrixfree_hanging_nodes_tpu.dof_handler import DoFHandler
-from dealii_matrixfree_hanging_nodes_tpu.elements import shape_info
-from dealii_matrixfree_hanging_nodes_tpu.ops.hanging_nodes import (
+import dealii_matrixfree_hanging_nodes as mfhn
+from dealii_matrixfree_hanging_nodes.constraints import build_constraints
+from dealii_matrixfree_hanging_nodes.dof_handler import DoFHandler
+from dealii_matrixfree_hanging_nodes.elements import shape_info
+from dealii_matrixfree_hanging_nodes.ops.hanging_nodes import (
     apply_hanging_node_constraints,
 )
 

@@ -1,10 +1,10 @@
 import numpy as np
 import pytest
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn
-from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
-from dealii_matrixfree_hanging_nodes_tpu.models.laplace import LaplaceOperator
-from dealii_matrixfree_hanging_nodes_tpu.oracle import vmult_oracle
+import dealii_matrixfree_hanging_nodes as mfhn
+from dealii_matrixfree_hanging_nodes.matrix_free import MatrixFree
+from dealii_matrixfree_hanging_nodes.models.laplace import LaplaceOperator
+from dealii_matrixfree_hanging_nodes.oracle import vmult_oracle
 
 
 CASES = [
@@ -75,7 +75,7 @@ def test_high_order_mapping_reduces_to_cartesian_when_identity():
     mf_cart = MatrixFree(t, p, dtype=np.float64)
     mf_ho = MatrixFree(t, p, dtype=np.float64, high_order_mapping=True)
     # identity transform: override geometry with the deformed-path computation
-    from dealii_matrixfree_hanging_nodes_tpu.mapping import deformed_laplace_factors
+    from dealii_matrixfree_hanging_nodes.mapping import deformed_laplace_factors
     import jax.numpy as jnp
 
     geo = deformed_laplace_factors(t, mf_ho.shape, transform=lambda x: x)

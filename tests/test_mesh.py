@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn
+import dealii_matrixfree_hanging_nodes as mfhn
 
 
 def test_uniform_counts():
@@ -50,7 +50,7 @@ def test_morton_order_sorted():
     t = mfhn.create_quadrant(3, 3)
     lmax = int(t.level.max())
     anchored = t.coord << (lmax - t.level[:, None])
-    from dealii_matrixfree_hanging_nodes_tpu.mesh import _interleave_bits
+    from dealii_matrixfree_hanging_nodes.mesh import _interleave_bits
 
     keys = _interleave_bits(anchored, lmax + 1)
     assert np.all(np.diff(keys.astype(np.int64)) > 0)
@@ -67,8 +67,8 @@ def test_cells_tile_domain():
 def test_native_fallback_matches_numpy(monkeypatch):
     """The NumPy fallback paths (used on compiler-less hosts) must produce the
     same mesh and DoF numbering as the native setup core."""
-    from dealii_matrixfree_hanging_nodes_tpu import native
-    from dealii_matrixfree_hanging_nodes_tpu.dof_handler import DoFHandler
+    from dealii_matrixfree_hanging_nodes import native
+    from dealii_matrixfree_hanging_nodes.dof_handler import DoFHandler
 
     if not native.available():
         pytest.skip("native core not built; fallback is the only path")

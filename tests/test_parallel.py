@@ -2,11 +2,11 @@ import numpy as np
 import jax
 import pytest
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn
-from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
-from dealii_matrixfree_hanging_nodes_tpu.models.laplace import LaplaceOperator
-from dealii_matrixfree_hanging_nodes_tpu.parallel.distributed import DistributedLaplace
-from dealii_matrixfree_hanging_nodes_tpu.parallel.partition import (
+import dealii_matrixfree_hanging_nodes as mfhn
+from dealii_matrixfree_hanging_nodes.matrix_free import MatrixFree
+from dealii_matrixfree_hanging_nodes.models.laplace import LaplaceOperator
+from dealii_matrixfree_hanging_nodes.parallel.distributed import DistributedLaplace
+from dealii_matrixfree_hanging_nodes.parallel.partition import (
     dof_owners,
     hanging_nodes_weighting,
     partition_cells,
@@ -34,8 +34,9 @@ def test_weighting_formula():
 
 
 def test_distributed_matches_single_chip():
-    """Multi-chip vmult == single-chip to machine precision — the TPU analog
-    of the reference's -np 1 vs -np 40 redundancy (benchmark_01.cc:251-272)."""
+    """Multi-device vmult == single-device to machine precision — the
+    analog of the reference's -np 1 vs -np 40 redundancy
+    (benchmark_01.cc:251-272)."""
     t = mfhn.create_quadrant(3, 3)
     mf = MatrixFree(t, 2, dtype=np.float64)
     op = LaplaceOperator(mf)
@@ -129,8 +130,8 @@ def test_halo_exchange_matches():
 
 # ---------------------------------------------------------------------------
 # distributed brick engine (the flagship path, sharded)
-from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickLaplaceMM
-from dealii_matrixfree_hanging_nodes_tpu.parallel.bricks_distributed import (
+from dealii_matrixfree_hanging_nodes.bricks import BrickLaplaceMM
+from dealii_matrixfree_hanging_nodes.parallel.bricks_distributed import (
     DistributedBrickLaplace,
 )
 
@@ -146,7 +147,7 @@ from dealii_matrixfree_hanging_nodes_tpu.parallel.bricks_distributed import (
     ],
 )
 def test_distributed_bricks_match_single_chip(dim, geometry, nref, degree):
-    """1-vs-8-device equivalence of the brick engine (TPU analog of the
+    """1-vs-8-device equivalence of the brick engine (analog of the
     reference's mpirun -np 1 vs -np N check, benchmark_01.cc:251-272)."""
     tria = mfhn.create_geometry(geometry, dim, nref)
     mf = MatrixFree(tria, degree=degree, dtype=np.float64)
@@ -189,7 +190,7 @@ def test_distributed_bricks_deformed_matches_single_chip(exchange):
 def test_distributed_bricks_weighted_repartition():
     """Weighted brick repartition changes the partition but not the result
     (benchmark_02.cc:63-87 analog on the brick engine)."""
-    from dealii_matrixfree_hanging_nodes_tpu.parallel.partition import (
+    from dealii_matrixfree_hanging_nodes.parallel.partition import (
         hanging_nodes_weighting,
     )
 

@@ -2,9 +2,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import dealii_matrixfree_hanging_nodes_tpu as mfhn
-from dealii_matrixfree_hanging_nodes_tpu.matrix_free import MatrixFree
-from dealii_matrixfree_hanging_nodes_tpu.models.multigrid import (
+import dealii_matrixfree_hanging_nodes as mfhn
+from dealii_matrixfree_hanging_nodes.matrix_free import MatrixFree
+from dealii_matrixfree_hanging_nodes.models.multigrid import (
     ChebyshevSmoother,
     DirichletLaplace,
     GMGPreconditioner,
@@ -21,7 +21,7 @@ def _dirichlet_setup(nref=3, p=2, dim=3, geo="quadrant"):
 
 
 def test_diagonal_matches_oracle():
-    from dealii_matrixfree_hanging_nodes_tpu.oracle import assemble_laplace
+    from dealii_matrixfree_hanging_nodes.oracle import assemble_laplace
 
     t = mfhn.create_quadrant(3, 3)
     mf = MatrixFree(t, 2, dtype=np.float64)
@@ -128,7 +128,7 @@ def test_distributed_gmg_cg_matches_single_chip():
     """Multi-chip Chebyshev-GMG-CG (BASELINE row 4): same iteration count and
     solution as the single-chip preconditioner on an 8-device mesh."""
     import jax
-    from dealii_matrixfree_hanging_nodes_tpu.parallel.multigrid_distributed import (
+    from dealii_matrixfree_hanging_nodes.parallel.multigrid_distributed import (
         DistributedGMGPreconditioner,
     )
 
@@ -155,7 +155,7 @@ def test_distributed_gmg_cg_matches_single_chip():
 
 # ---------------------------------------------------------------- brick GMG
 def test_laplace_diagonal_host_matches_device_probing():
-    from dealii_matrixfree_hanging_nodes_tpu.models.multigrid import (
+    from dealii_matrixfree_hanging_nodes.models.multigrid import (
         laplace_diagonal_host,
     )
 
@@ -174,8 +174,8 @@ def test_laplace_diagonal_host_matches_device_probing():
 def test_brick_refill_restores_invariant():
     """refill recomputes every hanging copy from masters after a pointwise
     mask breaks the invariant (the GMG stack's Dirichlet/diagonal ops)."""
-    from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickLaplaceMM
-    from dealii_matrixfree_hanging_nodes_tpu.models.multigrid_bricks import (
+    from dealii_matrixfree_hanging_nodes.bricks import BrickLaplaceMM
+    from dealii_matrixfree_hanging_nodes.models.multigrid_bricks import (
         BrickDirichletLaplace,
     )
 
@@ -199,8 +199,8 @@ def test_brick_refill_restores_invariant():
 
 @pytest.mark.slow
 def test_brick_transfer_matches_index_transfer():
-    from dealii_matrixfree_hanging_nodes_tpu.bricks import BrickLaplaceMM
-    from dealii_matrixfree_hanging_nodes_tpu.models.multigrid_bricks import (
+    from dealii_matrixfree_hanging_nodes.bricks import BrickLaplaceMM
+    from dealii_matrixfree_hanging_nodes.models.multigrid_bricks import (
         BrickTransfer,
     )
 
@@ -235,7 +235,7 @@ def test_brick_transfer_matches_index_transfer():
 def test_brick_gmg_cg_matches_index_gmg():
     """GMG-CG entirely on the brick engine (VERDICT r2 item 6): converges in
     O(10) iterations and reproduces the index-engine GMG solution."""
-    from dealii_matrixfree_hanging_nodes_tpu.models.multigrid_bricks import (
+    from dealii_matrixfree_hanging_nodes.models.multigrid_bricks import (
         BrickGMGPreconditioner,
     )
 

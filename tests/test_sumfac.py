@@ -1,9 +1,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from dealii_matrixfree_hanging_nodes_tpu.elements import shape_info
-from dealii_matrixfree_hanging_nodes_tpu.dof_handler import local_lattice
-from dealii_matrixfree_hanging_nodes_tpu.ops.sum_factorization import (
+from dealii_matrixfree_hanging_nodes.elements import shape_info
+from dealii_matrixfree_hanging_nodes.dof_handler import local_lattice
+from dealii_matrixfree_hanging_nodes.ops.sum_factorization import (
     evaluate_gradients,
     evaluate_values,
     integrate_gradients,
